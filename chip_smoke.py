@@ -9,16 +9,19 @@ Run from the root of a checkout. Phases, each fatal on failure:
   2. check the port's output against a reference on a small input: the
      reduced fp32 model's chunk-prefill and decode logits on the card
      (kernel) against the same model on the CPU (plain version);
-  3. serve KAPPA requests (N = 8, 4 problems, max_new 48, page 64,
+  3. serve KAPPA requests (N = 8, 4 problems, max_new 80, page 64,
      prefill chunk 64) through the port's ``serve_eval`` at the published
      width of deepseek-r1-distill-qwen-1.5b with random weights from
-     ``--seed``; the kernel launch counters, zeroed just before, must
-     show both modes launched and the plain version never called;
+     ``--seed``; prompt + max_new exceeds one page, so decoding rows
+     grow into a second page, which the scheduler's growth counter must
+     show; the kernel launch counters, zeroed just before, must show
+     both modes launched and the plain version never called;
   4. hold the kernel against its plain PyTorch version on the card at
      the slice's shapes (H 12, KV 2, hd 128, bf16 pages of 64 tokens):
-     decode over 16 rows at mixed positions with shared and
-     trash-aliased table entries, the main path's prefill chunk, and a
-     64-token chunk; time kernel, plain version and
+     decode over the main path's 16 rows and 2-page tables at mixed
+     positions with shared and trash-aliased table entries, the main
+     path's prefill chunk, and a 64-token chunk; time kernel, plain
+     version and
      ``scaled_dot_product_attention`` over pre-gathered K/V (a yardstick
      the port never calls) by CUDA-graph replay, beside the byte / FLOP
      bound and the kernel's eager per-call time.
@@ -167,17 +170,18 @@ def kernel_phase(results: list) -> None:
     """Kernel vs plain version at the main path's shapes (the JSON
     entries) and at the 64-token chunk a long prompt gives (checked and
     timed, printed). The main path's prompts are 9-15 tokens and its
-    requests need at most 63 positions, so every table there is one
-    64-token page: decode runs 16 rows (2 idle, as free rows are) at
-    positions 9..62, prefill one 15-token chunk at position 0."""
+    requests need at most 95 positions: its pool holds 32 pages + trash
+    and its tables 2 pages. Decode runs 16 rows (2 idle, as free rows
+    are) at positions 12..94, six of them past the first page; prefill
+    one 15-token chunk at position 0 through its 1-page table prefix."""
     import torch
     from repro_torch.kernels.paged_attn import ops
     from repro_torch.kernels.paged_attn.ref import paged_attn_ref
     cases = [
-        ("decode", True, dict(B=16, C=1, MP=1, P=24, idle_rows=2,
-                              pos0=[9, 12, 15, 20, 23, 28, 31, 37, 40, 44,
-                                    49, 53, 58, 62, 0, 0])),
-        ("prefill", True, dict(B=1, C=15, MP=1, P=4, pos0=[0])),
+        ("decode", True, dict(B=16, C=1, MP=2, P=33, idle_rows=2,
+                              pos0=[12, 20, 28, 37, 44, 52, 58, 63, 64, 70,
+                                    77, 83, 88, 94, 0, 0])),
+        ("prefill", True, dict(B=1, C=15, MP=1, P=33, pos0=[0])),
         ("prefill", False, dict(B=1, C=64, MP=2, P=8, pos0=[64])),
     ]
     for i, (kind, main_shape, c) in enumerate(cases):
@@ -232,12 +236,14 @@ def main_path_phase(seed: int) -> dict:
           f"V={cfg.vocab_size} {cfg.dtype}, random weights seed {seed} "
           f"({time.monotonic() - t0:.1f}s)", flush=True)
     ops.reset_counts()
-    out = serve_eval(ARCH, "kappa", n=8, problems=4, max_new=48, cfg=cfg,
+    out = serve_eval(ARCH, "kappa", n=8, problems=4, max_new=80, cfg=cfg,
                      params=params, page_size=64, prefill_chunk=64,
                      device="cuda")
     launches, plain = dict(ops.LAUNCHES), dict(ops.PLAIN)
     print(f"main path launches: kernel {launches} plain {plain} "
-          f"ticks={out['ticks']} decode_steps="
+          f"ticks={out['ticks']} decode_page_grows="
+          f"{out['decode_page_grows']} page_peak={out['page_peak']} "
+          f"decode_steps="
           f"{launches['decode'] // cfg.num_layers} "
           f"prefill_chunks={launches['prefill'] // cfg.num_layers}",
           flush=True)
@@ -245,6 +251,8 @@ def main_path_phase(seed: int) -> dict:
         raise AssertionError(f"main path skipped a kernel: {launches}")
     if any(plain.values()):
         raise AssertionError(f"main path ran the plain version: {plain}")
+    if out["decode_page_grows"] <= 0:
+        raise AssertionError("no decoding row grew past its first page")
     for r in out["results"]:
         if not r.tokens or not all(0 <= t < cfg.vocab_size for t in r.tokens):
             raise AssertionError(f"bad tokens {r.tokens}")
@@ -259,7 +267,8 @@ def main_path_phase(seed: int) -> dict:
         k: out[k] for k in ("total_tokens", "compute_tokens",
                             "device_peak_mb", "peak_memory_mb",
                             "tokens_per_s", "requests_per_s",
-                            "row_utilization", "ticks", "time_s")}}
+                            "row_utilization", "ticks", "page_peak",
+                            "decode_page_grows", "time_s")}}
 
 
 def reference_phase(seed: int) -> float:

@@ -4,63 +4,33 @@
       [--seed 0] [--out chiprun_out/profile_serve.json]
 
 Runs the KAPPA main path of ``chip_smoke.py`` (N = 8, 4 problems,
-max_new 48, page 64, prefill chunk 64, published width, random weights)
+max_new 80, page 64, prefill chunk 64, published width, random weights)
 three times through ``serve_eval``: cold (first use of the CUDA
-libraries), warm, and warm again under ``torch.profiler`` with the
-scheduler's phases marked. Reports the cold and warm metric lines, the
-host time of each phase in the profiled run (model step with its fused
-chunks, sampling, pooled controller, the tick's one host transfer, the
-whole tick), the device kernels launched per tick, the device's busy
-share of that run's wall time (summed kernel time over wall time), and
-the kernels with the most device time. Needs a CUDA device.
+libraries), warm, and warm again under ``torch.profiler``. Reports the
+cold and warm metric lines, the host time of each phase the scheduler
+marks as a ``sched:*`` range in the profiled run (model step with its
+fused chunks, sampling, pooled controller, the tick's one host transfer,
+standalone chunks, the whole tick), the device kernels launched per
+tick, the device's busy share of that run's wall time (summed kernel
+time over wall time), and the kernels with the most device time. Needs
+a CUDA device.
 """
 from __future__ import annotations
 
 import argparse
-import contextlib
-import functools
 import json
 import pathlib
 import subprocess
 import time
 
 import torch
-from torch.profiler import ProfilerActivity, profile, record_function
+from torch.profiler import ProfilerActivity, profile
 
 from repro_torch.configs import get_config
 from repro_torch.launch.serve import serve_eval
-from repro_torch.serving import scheduler as sched_mod
 from repro_torch.weights import init_params
 
 ARCH = "deepseek-r1-distill-qwen-1.5b"
-# scheduler phases marked in the trace: (object, attribute, label)
-PHASES = (
-    (sched_mod.PagedScheduler, "_decode_tick", "phase:model_step"),
-    (sched_mod.PagedScheduler, "_prefill_step", "phase:standalone_chunk"),
-    (sched_mod.sampler, "sample_rows", "phase:sampler"),
-    (sched_mod._SchedulerBase, "_pooled_kappa_dispatch", "phase:controller"),
-    (sched_mod, "to_host", "phase:host_transfer"),
-    (sched_mod._SchedulerBase, "tick", "phase:tick"),
-)
-
-
-@contextlib.contextmanager
-def marked_phases():
-    """Wrap each scheduler phase in a ``record_function`` range."""
-    saved = []
-    for owner, name, label in PHASES:
-        fn = getattr(owner, name)
-        saved.append((owner, name, fn))
-
-        def wrapped(*a, _fn=fn, _label=label, **kw):
-            with record_function(_label):
-                return _fn(*a, **kw)
-        setattr(owner, name, functools.wraps(fn)(wrapped))
-    try:
-        yield
-    finally:
-        for owner, name, fn in saved:
-            setattr(owner, name, fn)
 
 
 def main(argv=None):
@@ -73,13 +43,12 @@ def main(argv=None):
     torch.backends.cuda.matmul.allow_tf32 = False
     cfg = get_config(ARCH)
     params = init_params(cfg, args.seed, "cuda")
-    kw = dict(n=8, problems=4, max_new=48, cfg=cfg, params=params,
+    kw = dict(n=8, problems=4, max_new=80, cfg=cfg, params=params,
               page_size=64, prefill_chunk=64, device="cuda")
     cold = serve_eval(ARCH, "kappa", **kw)
     warm = serve_eval(ARCH, "kappa", **kw)
     torch.cuda.synchronize()
-    with marked_phases(), profile(
-            activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.monotonic()
         serve_eval(ARCH, "kappa", verbose=False, **kw)
         torch.cuda.synchronize()
@@ -88,10 +57,10 @@ def main(argv=None):
     # each marked phase appears twice: a host range (CPU) and its
     # annotation on the device timeline, which is not kernel time
     phases = {e.key: e.cpu_time_total / 1e3 for e in events
-              if e.key.startswith("phase:") and e.device_type.name == "CPU"}
+              if e.key.startswith("sched:") and e.device_type.name == "CPU"}
     kernels = sorted(
         [e for e in events if e.device_type.name == "CUDA"
-         and not e.key.startswith("phase:")
+         and not e.key.startswith("sched:")
          and e.self_device_time_total > 0],
         key=lambda e: -e.self_device_time_total)
     device_ms = sum(e.self_device_time_total for e in kernels) / 1e3

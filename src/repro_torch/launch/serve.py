@@ -4,11 +4,11 @@ paper's metric columns and the serving throughput.
 
   PYTHONPATH=src python -m repro_torch.launch.serve \
       --arch deepseek-r1-distill-qwen-1.5b --method kappa --n 8 \
-      --problems 4 --max-new 48 --paged --prefill-chunk 64 --full-width
+      --problems 4 --max-new 80 --paged --prefill-chunk 64 --full-width
 
 Without ``--full-width`` the model is the arch's ``reduced()`` smoke
 variant (2 layers, d_model 256, fp32, the toy tokenizer's vocabulary).
-Weights are random from ``--seed``. Runs on the GPU unless ``--device``
+Weights are random from ``--weight-seed``. Runs on the GPU unless ``--device``
 names another one.
 """
 from __future__ import annotations
@@ -32,36 +32,28 @@ METHODS = ("greedy", "kappa")
 
 
 def serve_eval(arch: str, method: str, *, n: int = 5, problems: int = 20,
-               d_model: int = 256, num_layers: int = 2, seed: int = 999,
-               weight_seed: int = 0, max_new: int = 48,
-               kcfg_kw: dict | None = None, dataset_kw: dict | None = None,
-               params=None, cfg=None, full_width: bool = False,
-               sched_rows: int | None = None, page_size: int = 64,
-               prefill_chunk: int = 64, device=None, verbose: bool = True,
+               seed: int = 999, weight_seed: int = 0, max_new: int = 48,
+               params=None, cfg=None, sched_rows: int | None = None,
+               page_size: int = 64, prefill_chunk: int = 64, device=None,
+               verbose: bool = True,
                clock: Optional[Callable[[], float]] = None) -> dict:
     """Serve ``problems`` task prompts with ``method`` through the paged
-    scheduler and return the metric dict. ``cfg`` overrides the model
-    config; ``full_width`` takes the arch's published config instead of
-    its reduced variant; ``params`` overrides the random weights."""
+    scheduler and return the metric dict. ``cfg`` is the model config
+    (default: the arch's ``reduced()`` variant at the tokenizer's
+    vocabulary); ``params`` overrides the random weights."""
     if method not in METHODS:
         raise ValueError(f"method {method!r} is not ported; have {METHODS}")
     device = resolve_device(device)
     clock = clock or time.monotonic
     if cfg is None:
-        cfg = get_config(arch)
-        if not full_width:
-            cfg = cfg.reduced(num_layers=num_layers, d_model=d_model,
-                              vocab_size=tok.VOCAB_SIZE)
+        cfg = get_config(arch).reduced(vocab_size=tok.VOCAB_SIZE)
     if params is None:
         params = init_params(cfg, weight_seed, device)
 
-    kw = dict(num_branches=n, max_new_tokens=max_new, max_cutoff=6,
-              horizon=8, window=8, mom_buckets=4)
-    kw.update(kcfg_kw or {})
-    kcfg = KappaConfig(**kw)
-    dkw = dict(min_steps=2, max_steps=5, num_ops=2, max_operand=10)
-    dkw.update(dataset_kw or {})
-    test = tasks.make_dataset(seed, problems, **dkw)
+    kcfg = KappaConfig(num_branches=n, max_new_tokens=max_new, max_cutoff=6,
+                       horizon=8, window=8, mom_buckets=4)
+    test = tasks.make_dataset(seed, problems, min_steps=2, max_steps=5,
+                              num_ops=2, max_operand=10)
 
     if device.type == "cuda":
         torch.cuda.reset_peak_memory_stats(device)
@@ -102,6 +94,7 @@ def serve_eval(arch: str, method: str, *, n: int = 5, problems: int = 20,
         "ticks": tp["ticks"],
         "page_utilization": tp["page_utilization"],
         "page_peak": tp["page_peak"],
+        "decode_page_grows": tp["decode_page_grows"],
         "device": str(device),
         "device_peak_mb": (torch.cuda.max_memory_allocated(device) / 1e6
                            if device.type == "cuda" else None),
@@ -134,9 +127,8 @@ def main(argv=None):
     ap.add_argument("--rows", type=int, default=None,
                     help="pool rows (default 2x fan-out)")
     ap.add_argument("--paged", action="store_true",
-                    help="the paged KV pool scheduler (the only serving "
-                         "path of the port so far; accepted for parity "
-                         "with the JAX launcher)")
+                    help="the paged KV pool scheduler (required: the only "
+                         "serving path ported so far)")
     ap.add_argument("--page-size", type=int, default=64)
     ap.add_argument("--prefill-chunk", type=int, default=64)
     ap.add_argument("--full-width", action="store_true",
@@ -144,11 +136,16 @@ def main(argv=None):
     ap.add_argument("--device", default=None,
                     help="torch device (default cuda)")
     args = ap.parse_args(argv)
+    if not args.paged:
+        ap.error("only the paged scheduler is ported: pass --paged")
+    cfg = get_config(args.arch)
+    if not args.full_width:
+        cfg = cfg.reduced(vocab_size=tok.VOCAB_SIZE)
     serve_eval(args.arch, args.method, n=args.n, problems=args.problems,
                max_new=args.max_new, seed=args.seed,
-               weight_seed=args.weight_seed, sched_rows=args.rows,
+               weight_seed=args.weight_seed, cfg=cfg, sched_rows=args.rows,
                page_size=args.page_size, prefill_chunk=args.prefill_chunk,
-               full_width=args.full_width, device=args.device)
+               device=args.device)
 
 
 if __name__ == "__main__":

@@ -16,11 +16,10 @@ inputs and outputs stay in the model dtype.
 
 Paged attention goes through ``kernels/paged_attn``: a CUDA tensor is
 served by the hand-written kernel, a CPU tensor by its plain version.
-:func:`paged_backend_counts` says which one ran.
+The wrapper's counters (``paged_ops.LAUNCHES`` / ``paged_ops.PLAIN``) say
+which one ran.
 """
 from __future__ import annotations
-
-from typing import Dict
 
 import torch
 
@@ -98,16 +97,6 @@ def attn_prefill(p, x, positions, k_cache, v_cache, *, num_heads: int,
 
 
 # ------------------------------------------------------------ paged paths
-
-def paged_backend_counts() -> Dict[str, int]:
-    """Which backend the paged attention paths ran, by mode — the
-    counterpart of the JAX package's trace-time counters, counted per
-    call here (PyTorch runs eagerly)."""
-    return {"decode_kernel": paged_ops.LAUNCHES["decode"],
-            "decode_oracle": paged_ops.PLAIN["decode"],
-            "prefill_kernel": paged_ops.LAUNCHES["prefill"],
-            "prefill_oracle": paged_ops.PLAIN["prefill"]}
-
 
 def attn_prefill_chunk_paged(p, x, pos0, k_pool, v_pool, block_tables,
                              chunk_pages, *, num_heads: int,

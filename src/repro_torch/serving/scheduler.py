@@ -35,6 +35,7 @@ from typing import Callable, Dict, List, Optional
 
 import numpy as np
 import torch
+from torch.profiler import record_function
 
 from repro_torch.configs.base import KappaConfig, ModelConfig
 from repro_torch.device import resolve_device
@@ -227,7 +228,8 @@ class _SchedulerBase:
             if rid in fused:
                 continue
             pf = self.prefilling[rid]
-            logits = self._prefill_step(pf)
+            with record_function("sched:standalone_chunk"):
+                logits = self._prefill_step(pf)
             if logits is not None:
                 self._finish_prefill(pf)
                 del self.prefilling[rid]
@@ -279,7 +281,12 @@ class _SchedulerBase:
         """Admit what fits, advance PREFILLING requests, run one decode
         step over the pool (with the fused chunks), one sampling call,
         one pooled controller step, ONE host transfer, then advance every
-        active request on its own rows (host work)."""
+        active request on its own rows (host work). Its phases are marked
+        as ``sched:*`` ranges for ``torch.profiler``."""
+        with record_function("sched:tick"):
+            self._tick()
+
+    def _tick(self) -> None:
         while self._admit_one():
             pass
         self._advance_prefills()
@@ -290,7 +297,8 @@ class _SchedulerBase:
                 self.ticks += 1
             return
         self._occupied_ticks += self.rows - len(self.free)
-        logits = self._decode_tick()
+        with record_function("sched:model_step"):
+            logits = self._decode_tick()
 
         # one per-row-keyed sampling call for the whole pool; free rows
         # ride along as masked argmax (ignored)
@@ -299,14 +307,17 @@ class _SchedulerBase:
         for rs, slots in self.active.values():
             keys[slots] = rs.step_keys()
             gmask[slots] = rs.strategy.greedy
-        toks_dev = sampler.sample_rows(keys.to(self.device), logits,
-                                       self._dev(gmask), self.kcfg)
+        with record_function("sched:sampler"):
+            toks_dev = sampler.sample_rows(keys.to(self.device), logits,
+                                           self._dev(gmask), self.kcfg)
         self.counters["sampler_dispatches"] += 1
         # the pooled controller consumes the pool logits and the
         # just-sampled tokens on the device
-        ctrl_dev = self._pooled_kappa_dispatch(logits, toks_dev)
+        with record_function("sched:controller"):
+            ctrl_dev = self._pooled_kappa_dispatch(logits, toks_dev)
         # ONE host transfer for the tokens and every controller output
-        host = to_host(toks_dev, *(ctrl_dev or ()))
+        with record_function("sched:host_transfer"):
+            host = to_host(toks_dev, *(ctrl_dev or ()))
         self.counters["host_syncs"] += 1
         toks = host[0].astype(np.int32)
         if ctrl_dev is not None:
@@ -412,6 +423,7 @@ class PagedScheduler(_SchedulerBase):
         self.pool = init_paged_cache(cfg, self.num_pages, page_size,
                                      self.device)
         self.counters["fused_chunks"] = 0
+        self.counters["decode_page_grows"] = 0   # lazy growth past a page
         self._page_ticks = 0                 # Σ pages in use over ticks
         self._page_peak = 0                  # max pages in use at any tick
         self._bt_dev = None                  # device block tables (cached)
@@ -486,6 +498,7 @@ class PagedScheduler(_SchedulerBase):
                 lp = int(self.row_pos[s]) // self.page_size
                 while int(self.alloc.owned[s]) <= lp:
                     self._grow_row(s)
+                    self.counters["decode_page_grows"] += 1
 
     # ------------------------------------------------- chunked prefill
 
@@ -615,4 +628,5 @@ class PagedScheduler(_SchedulerBase):
         out["page_utilization"] = (self._page_ticks
                                    / max(self.ticks * self.num_pages, 1))
         out["page_peak"] = self._page_peak
+        out["decode_page_grows"] = self.counters["decode_page_grows"]
         return out

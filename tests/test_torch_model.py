@@ -21,6 +21,7 @@ from repro.models import init_params as jax_init_params
 from repro.models import prefill as jax_prefill
 from repro.models import prefill_chunk as jax_prefill_chunk
 from repro_torch.configs import get_config
+from repro_torch.kernels.paged_attn import ops as paged_ops
 from repro_torch.models import (
     decode_step,
     init_cache,
@@ -28,7 +29,6 @@ from repro_torch.models import (
     prefill,
     prefill_chunk,
 )
-from repro_torch.models.attention import paged_backend_counts
 from repro_torch.weights import from_jax_params
 from torch_threads import one_torch_thread  # noqa: F401
 
@@ -182,9 +182,8 @@ def test_paged_paths_run_the_plain_version_on_cpu(models):
     plain version, never the kernel."""
     jcfg, jparams, cfg, params = models
     _, pool, pos, bt = _paged_state(jcfg, cfg, 2, 8, 8, 32, seed=1)
-    before = paged_backend_counts()
+    launches, plain = dict(paged_ops.LAUNCHES), dict(paged_ops.PLAIN)
     decode_step(params, cfg, torch.tensor([1, 2]), _t(pos), pool, _t(bt))
-    after = paged_backend_counts()
-    assert after["decode_oracle"] == before["decode_oracle"] + cfg.num_layers
-    assert after["decode_kernel"] == before["decode_kernel"]
-    assert after["prefill_kernel"] == before["prefill_kernel"]
+    assert paged_ops.PLAIN["decode"] == plain["decode"] + cfg.num_layers
+    assert paged_ops.PLAIN["prefill"] == plain["prefill"]
+    assert paged_ops.LAUNCHES == launches

@@ -6,18 +6,19 @@ branch, logical and compute token counts, compactions and
 ``peak_cache_bytes``. Plus the port's page allocator against the JAX
 one, and the serving entry point's device contract.
 
-In the JAX runs here the reference's pooled controller moves its int32
-host array ``row_n`` to a fresh copy after every dispatch
-(``_race_free``, undone after each run). Without it the JAX
+The JAX runs here go through ``_race_free``, undone after each run or
+tick: it makes ``jnp.asarray`` in the reference's serving modules copy
+a numpy argument before handing it to JAX. Without it the JAX
 ``PagedScheduler`` is not deterministic on the CPU: ``jnp.asarray`` of
-an int32 numpy array aliases the host memory instead of copying it, the
-dispatch returns before the computation has read it, and the reference
-rewrites that array in place (``PooledKappaController.acquire``), so
-identical runs in one process reach different KAPPA decisions (3
-outcomes in 6 runs of the tick-by-tick case). With the copy every run
-gives the port's tokens.
+an int32 numpy array aliases the host memory instead of copying it,
+the dispatch returns before the computation has read it, and the
+reference rewrites such arrays in place (``row_n`` in
+``PooledKappaController.acquire``, ``row_pos`` / ``row_token`` and the
+block tables between ticks), so identical runs in one process can reach
+different decisions. With the copies every run gives the port's tokens.
 """
 import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
@@ -28,15 +29,17 @@ from repro.data import tasks as jax_tasks
 from repro.data import tokenizer as tok
 from repro.models import init_params as jax_init_params
 from repro.serving.cache import PageAllocator as JaxPageAllocator
+from repro.serving import engine as jax_engine
+from repro.serving import scheduler as jax_scheduler
+from repro.serving import strategies as jax_strategies
 from repro.serving.scheduler import PagedScheduler as JaxPagedScheduler
-from repro.serving.strategies import \
-    PooledKappaController as JaxPooledKappaController
 from repro_torch.configs import get_config
+from repro_torch.kernels.paged_attn import ops as paged_ops
 from repro_torch.configs.base import KappaConfig
 from repro_torch.data import tasks
 from repro_torch.device import resolve_device
+from repro_torch.launch.serve import main as serve_main
 from repro_torch.launch.serve import serve_eval
-from repro_torch.models.attention import paged_backend_counts
 from repro_torch.serving import rng
 from repro_torch.serving.cache import PageAllocator
 from repro_torch.serving.scheduler import PagedScheduler
@@ -58,17 +61,25 @@ def weights():
     return jcfg, jparams, cfg, params
 
 
-def _race_free(mp):
-    """After every dispatch of the JAX pooled controller, move ``row_n``
-    to a fresh array, so the one the dispatched computation aliases is
-    never rewritten (see the module docstring)."""
-    orig = JaxPooledKappaController.dispatch
+class _CopyingJnp:
+    """``jax.numpy`` whose ``asarray`` copies a numpy argument first, so
+    the array JAX may alias is one nobody rewrites."""
 
-    def dispatch(self, *args, **kwargs):
-        out = orig(self, *args, **kwargs)
-        self.row_n = self.row_n.copy()
-        return out
-    mp.setattr(JaxPooledKappaController, "dispatch", dispatch)
+    def __getattr__(self, name):
+        return getattr(jnp, name)
+
+    @staticmethod
+    def asarray(a, *args, **kwargs):
+        if isinstance(a, np.ndarray):
+            a = a.copy()
+        return jnp.asarray(a, *args, **kwargs)
+
+
+def _race_free(mp):
+    """Route the reference serving modules' ``jnp`` through
+    ``_CopyingJnp`` (see the module docstring)."""
+    for mod in (jax_engine, jax_scheduler, jax_strategies):
+        mp.setattr(mod, "jnp", _CopyingJnp())
 
 
 def _serve_both(weights, method, rows):
@@ -94,9 +105,9 @@ def _serve_both(weights, method, rows):
 
 @pytest.fixture(scope="module")
 def kappa_runs(weights):
-    before = paged_backend_counts()
+    before = (dict(paged_ops.LAUNCHES), dict(paged_ops.PLAIN))
     runs = _serve_both(weights, "kappa", rows=8)
-    return runs, before, paged_backend_counts()
+    return runs, before, (dict(paged_ops.LAUNCHES), dict(paged_ops.PLAIN))
 
 
 def test_paged_kappa_token_for_token(kappa_runs):
@@ -129,14 +140,24 @@ def test_paged_kappa_scheduler_state_matches(kappa_runs):
     assert c["host_syncs"] <= ts.ticks
 
 
+def test_paged_kappa_grew_decode_pages(kappa_runs):
+    """Decoding rows crossed page boundaries and took pages lazily: the
+    growth counter moved and the peak of pages in use matches the
+    reference's."""
+    (js, _, ts, _), _, _ = kappa_runs
+    assert ts.counters["decode_page_grows"] > 0
+    assert ts.throughput()["decode_page_grows"] == \
+        ts.counters["decode_page_grows"]
+    assert ts.throughput()["page_peak"] == js.throughput()["page_peak"]
+
+
 def test_paged_kappa_ran_plain_attention_on_cpu(kappa_runs):
     """Both paged attention modes served the CPU run, by the plain
     version (the kernel counters did not move)."""
-    _, before, after = kappa_runs
-    assert after["decode_oracle"] > before["decode_oracle"]
-    assert after["prefill_oracle"] > before["prefill_oracle"]
-    assert after["decode_kernel"] == before["decode_kernel"]
-    assert after["prefill_kernel"] == before["prefill_kernel"]
+    _, (launches0, plain0), (launches1, plain1) = kappa_runs
+    assert plain1["decode"] > plain0["decode"]
+    assert plain1["prefill"] > plain0["prefill"]
+    assert launches1 == launches0
 
 
 def test_paged_kappa_tick_by_tick(weights):
@@ -237,6 +258,20 @@ def test_serve_eval_on_cpu_reports_the_metric_line():
     assert out["device"] == "cpu" and out["device_peak_mb"] is None
     assert out["total_tokens"] > 0 and out["tokens_per_s"] > 0
     assert 0 < out["row_utilization"] <= 1
+
+
+def test_serve_cli_requires_paged(capsys):
+    """The CLI serves only through the paged scheduler: without --paged
+    it exits with a usage error; with it, it prints the metric line."""
+    argv = ["--method", "greedy", "--n", "1", "--problems", "1",
+            "--max-new", "4", "--page-size", "8", "--prefill-chunk", "4",
+            "--device", "cpu"]
+    with pytest.raises(SystemExit) as exc:
+        serve_main(argv)
+    assert exc.value.code == 2
+    assert "--paged" in capsys.readouterr().err
+    serve_main(argv + ["--paged"])
+    assert "tok/s" in capsys.readouterr().out
 
 
 def test_entry_points_default_to_cuda():
