@@ -1,5 +1,5 @@
-"""GQA global attention: contiguous prefill and the paged chunk-prefill /
-decode paths.
+"""GQA global attention: contiguous prefill and decode, and the paged
+chunk-prefill / decode paths.
 
 Layouts (as in the JAX package)
 -------------------------------
@@ -14,15 +14,17 @@ Caches are stacked over layers; each function takes one layer's slice
 whole run instead of a functional copy per step. Softmax math is fp32;
 inputs and outputs stay in the model dtype.
 
-Paged attention goes through ``kernels/paged_attn``: a CUDA tensor is
-served by the hand-written kernel, a CPU tensor by its plain version.
-The wrapper's counters (``paged_ops.LAUNCHES`` / ``paged_ops.PLAIN``) say
+Contiguous decode attention goes through ``kernels/decode_attn`` and
+paged attention through ``kernels/paged_attn``: a CUDA tensor is served
+by the hand-written kernel, a CPU tensor by its plain version. The
+wrappers' counters (``LAUNCHES`` / ``PLAIN`` of each ``ops`` module) say
 which one ran.
 """
 from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels.decode_attn import ops as decode_ops
 from repro_torch.kernels.paged_attn import ops as paged_ops
 from repro_torch.models.rope import apply_rope
 
@@ -94,6 +96,28 @@ def attn_prefill(p, x, positions, k_cache, v_cache, *, num_heads: int,
     mask = positions[:, None] >= positions[None, :]            # (Sq, Sk)
     out = _attend(q.reshape(B, S, num_kv_heads, G, head_dim), k, v, mask)
     return out.reshape(B, S, num_heads * head_dim) @ p["wo"]
+
+
+# ----------------------------------------------------------------- decode
+
+def attn_decode(p, x, pos: int, k_cache, v_cache, *, num_heads: int,
+                num_kv_heads: int, head_dim: int, rope_theta: float,
+                use_rope: bool):
+    """One-token decode against one layer's contiguous cache slice
+    (B, S_max, KV, hd) at the scalar absolute position ``pos`` (a host
+    int, shared by every row). Writes the token's K/V into slot ``pos``
+    in place, attends over slots ``<= pos`` and applies ``wo``.
+    x: (B, 1, d). Returns y (B, 1, d)."""
+    B = x.shape[0]
+    q, k, v = _project_qkv(p, x, num_heads, num_kv_heads, head_dim)
+    if use_rope:
+        positions = torch.full((1,), pos, dtype=torch.long, device=x.device)
+        q = apply_rope(q, positions, rope_theta)
+        k = apply_rope(k, positions, rope_theta)
+    k_cache[:, pos] = k[:, 0].to(k_cache.dtype)
+    v_cache[:, pos] = v[:, 0].to(v_cache.dtype)
+    out = decode_ops.decode_attn(q[:, 0], k_cache, v_cache, pos)
+    return out.to(x.dtype).reshape(B, 1, num_heads * head_dim) @ p["wo"]
 
 
 # ------------------------------------------------------------ paged paths

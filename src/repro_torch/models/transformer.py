@@ -18,7 +18,7 @@ Public API:
     prefill(params, cfg, tokens, cache)                      -> (logits, cache)
     prefill_chunk(params, cfg, tokens, pos0, cache, block_tables,
                   chunk_pages)                               -> (logits, cache)
-    decode_step(params, cfg, token, pos, cache, block_tables,
+    decode_step(params, cfg, token, pos, cache, block_tables=None,
                 write_pages=None)                            -> (logits, cache)
 """
 from __future__ import annotations
@@ -113,17 +113,26 @@ def prefill_chunk(params, cfg: ModelConfig, tokens, pos0, cache,
     return _logits(params, cfg, x[:, -1:])[:, 0], cache
 
 
-def decode_step(params, cfg: ModelConfig, token, pos, cache, block_tables,
-                write_pages=None):
-    """One paged decode step. token: (B,) int; pos: (B,) int32 per-row
-    positions; block_tables: (B, MP) int32; ``write_pages`` ((B,) int32,
-    optional) pins each row's K/V write to an allocator-certified page.
-    Returns (logits (B, V), cache)."""
+def decode_step(params, cfg: ModelConfig, token, pos, cache,
+                block_tables=None, write_pages=None):
+    """One decode step. token: (B,) int.
+
+    Without ``block_tables`` the step runs over the contiguous cache of
+    :func:`init_cache` at the scalar absolute position ``pos`` (a host
+    int, shared by every row), through the contiguous decode kernel.
+    With ``block_tables`` ((B, MP) int32) it runs over the paged pool of
+    :func:`init_paged_cache` at per-row positions ``pos`` ((B,) int32);
+    ``write_pages`` ((B,) int32, optional) then pins each row's K/V write
+    to an allocator-certified page. Returns (logits (B, V), cache)."""
     x = _embed_in(params, cfg, token[:, None])
     for i, lp in enumerate(params["layers"]):
         h = rms_norm(x, lp["ln1"], cfg.norm_eps)
-        x = x + attn.attn_decode_paged(
-            lp["attn"], h, pos, cache["k"][i], cache["v"][i], block_tables,
-            write_pages, **_attn_kw(cfg))
-        x = _ffn(lp, cfg, x)
+        if block_tables is None:
+            y = attn.attn_decode(lp["attn"], h, pos, cache["k"][i],
+                                 cache["v"][i], **_attn_kw(cfg))
+        else:
+            y = attn.attn_decode_paged(
+                lp["attn"], h, pos, cache["k"][i], cache["v"][i],
+                block_tables, write_pages, **_attn_kw(cfg))
+        x = _ffn(lp, cfg, x + y)
     return _logits(params, cfg, x)[:, 0], cache

@@ -1,4 +1,9 @@
-"""Paged KV bookkeeping and byte accounting.
+"""KV cache bookkeeping: batch-axis helpers of the contiguous cache,
+the paged pool's page table, and byte accounting.
+
+``gather_batch`` / ``broadcast_batch`` select and replicate branch rows
+of the engine loop's contiguous cache ``{"k", "v"}`` of shape (L, B, S,
+KV, hd), whose batch is axis 1.
 
 ``PageAllocator`` is the host-side (numpy) page table of the shared
 device page pool, with per-page reference counts for copy-on-write
@@ -65,6 +70,21 @@ def copy_pages(pool: Dict[str, torch.Tensor], src_pages, dst_pages) -> None:
     for t in pool.values():
         s, d = src.to(t.device), dst.to(t.device)
         t[:, d] = t[:, s]
+
+
+def gather_batch(cache: Dict[str, torch.Tensor], idx) -> Dict[str, torch.Tensor]:
+    """Select branch rows ``idx`` (a sequence of row indices) from every
+    cache tensor: a new, smaller cache (bucketed compaction)."""
+    return {key: t[:, torch.as_tensor(idx, dtype=torch.long, device=t.device)]
+            for key, t in cache.items()}
+
+
+def broadcast_batch(cache: Dict[str, torch.Tensor], n: int
+                    ) -> Dict[str, torch.Tensor]:
+    """Replicate a batch-1 cache to ``n`` branch rows (post-prefill
+    fan-out). The rows are copies: decode writes each one in place."""
+    return {key: t.repeat(1, n, *([1] * (t.dim() - 2)))
+            for key, t in cache.items()}
 
 
 def bucket_chain(n: int) -> List[int]:

@@ -21,10 +21,11 @@ allocated lazily at page-boundary crossings. Per tick:
 
 The host logic is the JAX package's, shared line for line with its
 ``PagedScheduler``; with the same per-request keys the two give the same
-tokens. Out of this slice: the prefix cache, faults and retry,
-cancellation / deadlines / shedding, streaming, int8 KV, and preemption —
-the pool is sized so that pages never run out (``rows * max_pages``), and
-running out raises instead of preempting.
+tokens. It serves greedy and KAPPA requests; BoN and ST-BoN run on the
+single-request engine loop only. Not ported yet: the prefix cache, faults
+and retry, cancellation / deadlines / shedding, streaming, int8 KV, and
+preemption — the pool is sized so that pages never run out (``rows *
+max_pages``), and running out raises instead of preempting.
 """
 from __future__ import annotations
 
@@ -44,6 +45,11 @@ from repro_torch.models.transformer import check_supported
 from repro_torch.serving import cache as cache_lib
 from repro_torch.serving import engine, sampler, strategies
 from repro_torch.serving.strategies import GenResult, to_host
+
+
+# the methods whose strategies read no per-step logits: the tick hands
+# every request its sampled tokens only
+SCHEDULED_METHODS = ("greedy", "kappa")
 
 
 class Unservable(ValueError):
@@ -94,6 +100,11 @@ class _SchedulerBase:
         self.eos_id = eos_id
         self.bos_id = bos_id
         self.device = resolve_device(device)
+        if method not in SCHEDULED_METHODS:
+            raise ValueError(
+                f"method {method!r} is not served by the paged scheduler "
+                f"yet (have {SCHEDULED_METHODS}); BoN and ST-BoN on it are "
+                "a later slice of the port (ROADMAP queue 1)")
         need = strategies.make_strategy(method).rows(kcfg)
         if rows < need:
             raise ValueError(f"pool rows={rows} < request fan-out {need}")
@@ -195,9 +206,9 @@ class _SchedulerBase:
         first tokens from the prefill logits, and activate the request
         (or, already finished, record its result)."""
         rs = strategies.RequestState(
-            strategies.make_strategy(self.method), self.cfg, self.kcfg,
-            len(item.prompt), item.rng, eos_id=self.eos_id,
-            max_seq=self.max_seq)
+            strategies.make_strategy(self.method), self.params, self.cfg,
+            self.kcfg, len(item.prompt), item.rng, eos_id=self.eos_id,
+            bos_id=self.bos_id, max_seq=self.max_seq)
         self._maybe_pool_controller(rs)
         rs.first_tokens(pf_logits)
         self.active[item.rid] = (rs, slots)
@@ -326,7 +337,7 @@ class _SchedulerBase:
 
         for rid in list(self.active):
             rs, slots = self.active[rid]
-            dec = rs.advance(toks[slots])
+            dec = rs.advance(None, toks[slots])
             if dec.keep is not None:
                 kept = [slots[i] for i in dec.keep]
                 self._release(sorted(set(slots) - set(kept)))

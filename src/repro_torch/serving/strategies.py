@@ -1,15 +1,22 @@
 """Decode strategies: each method's per-step controller state and
 selection rule behind one uniform interface (DESIGN.md §3).
 
-A ``DecodeStrategy`` owns everything method-specific, while
-``RequestState`` holds the method-agnostic host state of one in-flight
-request (token log, done mask, RNG stream, token/byte accounting). The
-scheduler drives both; every host-side decision (sampling keys, masking,
-compaction order, termination) lives here, as in the JAX package, which
-is what makes the port's runs comparable with it token for token.
+A ``DecodeStrategy`` owns everything method-specific — KAPPA's
+controller state, BoN's running log-probabilities, ST-BoN's divergence
+tracking — while ``RequestState`` holds the method-agnostic host state
+of one in-flight request (token log, done mask, RNG stream, token/byte
+accounting). Two serving paths share them:
 
-This slice ports the KAPPA and greedy strategies, with KAPPA's
-controller pooled across requests (:class:`PooledKappaController`).
+  * the single-request engine loop (``repro_torch.serving.engine``): one
+    model step per iteration, cache rows gathered on compaction, one
+    host transfer per step in :meth:`RequestState.sample_and_advance`;
+  * the paged scheduler (``repro_torch.serving.scheduler``), which
+    serves greedy and KAPPA, KAPPA's controller pooled across requests
+    (:class:`PooledKappaController`).
+
+Every host-side decision (sampling keys, masking, compaction order,
+termination) lives here, as in the JAX package, which is what makes the
+port's runs comparable with it token for token.
 """
 from __future__ import annotations
 
@@ -176,19 +183,32 @@ class DecodeStrategy:
 
     name = "base"
     greedy = False  # argmax sampling instead of temperature sampling
+    # the strategy consumes each step's picked-token log-probs; the
+    # engine loop then fetches them in the step's one host transfer
+    wants_picked_lp = False
 
     def rows(self, kcfg: KappaConfig) -> int:
         return kcfg.num_branches
 
-    def begin(self, kcfg: KappaConfig) -> None:
+    def begin(self, params, cfg: ModelConfig, kcfg: KappaConfig, *,
+              bos_id: int) -> None:
         self.kcfg = kcfg
 
     def init_done(self, tokens0: np.ndarray, eos_id: int) -> np.ndarray:
         return np.zeros(tokens0.shape, bool)
 
-    def step(self, in_tokens: np.ndarray, out_tokens: np.ndarray,
+    def observe_prefill(self, picked_lp: Optional[np.ndarray]) -> None:
+        """Observe the fan-out's first tokens: their log-probs under the
+        prefill logits when the strategy wants them, else None."""
+
+    def step(self, logits, in_tokens: np.ndarray, out_tokens: np.ndarray,
              branch_ids: np.ndarray, done: np.ndarray,
-             done_prev: np.ndarray, step_idx: int) -> StepDecision:
+             done_prev: np.ndarray, step_idx: int,
+             picked_lp: Optional[np.ndarray] = None) -> StepDecision:
+        """Observe one decode step. ``logits`` are the rows' (rows, V)
+        device logits of the step (None from the paged scheduler, whose
+        strategies read none); ``out_tokens`` the just-sampled tokens,
+        EOS for rows already done."""
         raise NotImplementedError
 
     def choose(self, branch_ids: np.ndarray, done: np.ndarray) -> int:
@@ -219,8 +239,8 @@ class GreedyStrategy(DecodeStrategy):
     def init_done(self, tokens0, eos_id):
         return tokens0 == eos_id
 
-    def step(self, in_tokens, out_tokens, branch_ids, done, done_prev,
-             step_idx):
+    def step(self, logits, in_tokens, out_tokens, branch_ids, done,
+             done_prev, step_idx, picked_lp=None):
         # the EOS token itself is logged/counted (emitted before done)
         return StepDecision(counted=~done_prev,
                             stop=bool(done[branch_ids[0]]))
@@ -229,21 +249,161 @@ class GreedyStrategy(DecodeStrategy):
         return int(branch_ids[0])   # one branch; every token is final
 
 
+class BoNStrategy(DecodeStrategy):
+    """Full Best-of-N with negative-perplexity selection (Kang et al.
+    2025): every branch decodes to EOS, keep the most likely one."""
+
+    name = "bon"
+    wants_picked_lp = True
+
+    def begin(self, params, cfg, kcfg, *, bos_id):
+        super().begin(params, cfg, kcfg, bos_id=bos_id)
+        n = kcfg.num_branches
+        self.sum_lp = np.zeros((n,), np.float64)
+        self.count = np.zeros((n,), np.int64)
+
+    def observe_prefill(self, picked_lp):
+        self.sum_lp += picked_lp.astype(np.float64)
+        self.count += 1
+
+    def step(self, logits, in_tokens, out_tokens, branch_ids, done,
+             done_prev, step_idx, picked_lp=None):
+        step_lp = picked_lp.astype(np.float64)
+        newly = ~done_prev  # a branch's own EOS step still counts toward ppl
+        # index by branch id: after eager release the step arrays cover
+        # only surviving rows, while sum_lp/count stay full fan-out
+        self.sum_lp[branch_ids] += np.where(newly, step_lp, 0.0)
+        self.count[branch_ids] += newly
+        # release EOS'd branches eagerly: a done branch contributes
+        # nothing further to its perplexity, so its rows go
+        alive = ~done[branch_ids]
+        keep = np.where(alive)[0] if alive.any() and not alive.all() else None
+        return StepDecision(counted=newly, keep=keep, stop=bool(np.all(done)))
+
+    def choose(self, branch_ids, done):
+        return int(np.argmax(self._neg_ppl()))
+
+    def decided_branch(self, branch_ids, done):
+        # perplexity ranks over the FULL fan-out (eagerly-released EOS
+        # branches included), so the winner can change until the last
+        # branch finishes — undecided unless the fan-out is one
+        return int(branch_ids[0]) if len(self.sum_lp) == 1 else None
+
+    def _neg_ppl(self):
+        return self.sum_lp / np.maximum(self.count, 1)
+
+    def extra(self):
+        return {"neg_ppl": self._neg_ppl().tolist()}
+
+
+class STBoNStrategy(DecodeStrategy):
+    """Self-Truncation BoN (Wang et al. 2025): decode until the earliest
+    point of pairwise difference + a fixed buffer window, then keep the
+    branch most consistent with the others and truncate the rest.
+
+    Consistency = mean pairwise cosine similarity of the branches'
+    buffer-window-averaged next-token distributions, as in the JAX
+    package. The distributions are summed on the device in float64 (the
+    reference sums the same float64 values on the host, element by
+    element, so the sums are the same); the host reads the sum once,
+    when it selects."""
+
+    name = "stbon"
+
+    def __init__(self, buffer_window: int = 16):
+        self.buffer_window = buffer_window
+
+    def begin(self, params, cfg, kcfg, *, bos_id):
+        super().begin(params, cfg, kcfg, bos_id=bos_id)
+        n = kcfg.num_branches
+        self.diverged = np.eye(n, dtype=bool)
+        self.cutoff_hit: Optional[int] = None
+        self.prob_acc = torch.zeros((n, cfg.vocab_size), dtype=torch.float64,
+                                    device=params["embed"].device)
+        self.prob_cnt = 0
+        self.truncated = False
+
+    def step(self, logits, in_tokens, out_tokens, branch_ids, done,
+             done_prev, step_idx, picked_lp=None):
+        kcfg = self.kcfg
+        keep = None
+        if not self.truncated:
+            self.diverged |= out_tokens[:, None] != out_tokens[None, :]
+            if self.cutoff_hit is None and (np.all(self.diverged)
+                                            or step_idx >= kcfg.max_cutoff):
+                self.cutoff_hit = step_idx
+            if self.cutoff_hit is not None:
+                self.prob_acc += torch.softmax(logits.float(), dim=-1).double()
+                self.prob_cnt += 1
+                if step_idx >= self.cutoff_hit + self.buffer_window:
+                    keep = np.array([int(np.argmax(self._consistency()))])
+                    self.truncated = True
+        bids = branch_ids if keep is None else branch_ids[keep]
+        stop = (self.truncated and bool(done[bids[0]])) or bool(np.all(done[bids]))
+        # EOS-emitting steps count (~done_prev), matching greedy/BoN —
+        # a branch's own EOS token is part of its generated sequence
+        return StepDecision(counted=~done_prev, keep=keep, stop=stop)
+
+    def _consistency(self):
+        # one read of the (N, V) sum at selection, not one per step
+        # repro-lint: disable-next-line=sync-discipline
+        prob_acc, = to_host(self.prob_acc)
+        mean_p = prob_acc / max(self.prob_cnt, 1)
+        norm = np.linalg.norm(mean_p, axis=-1, keepdims=True)
+        unit = mean_p / np.maximum(norm, 1e-12)
+        sim = unit @ unit.T
+        n = prob_acc.shape[0]
+        return (sim.sum(-1) - 1.0) / max(n - 1, 1)
+
+    def choose(self, branch_ids, done):
+        """If every branch hit EOS before ``cutoff + buffer_window``
+        forced a truncation, select by the consistency accumulated so
+        far; before any divergence (no signal accumulated) all branches
+        are prefix-identical, so branch 0 is the tie-break."""
+        if self.truncated:
+            return int(branch_ids[0])
+        if self.prob_cnt > 0:
+            return int(branch_ids[int(np.argmax(self._consistency()))])
+        return int(branch_ids[0])
+
+    def decided_branch(self, branch_ids, done):
+        # after self-truncation only the consistency winner survives and
+        # choose() is pinned to it; before that the pick can still move
+        return int(branch_ids[0]) if self.truncated else None
+
+    def extra(self):
+        return {"cutoff": self.cutoff_hit}
+
+
 class KappaStrategy(DecodeStrategy):
     """The paper's KAPPA controller: latent-informativeness scoring with
     scheduled pruning and bucketed compaction (DESIGN.md §2).
 
-    The controller math runs in the scheduler's pooled dispatch
-    (:class:`PooledKappaController`); this strategy reads its slot's
-    slice of the published host mirrors. ``ctrl_rows`` maps the request's
-    current (compaction-survivor) row order onto the slot's controller
-    rows; compaction only shrinks the map (dropped rows are dead in the
-    state)."""
+    Two controller backends behind the same host-side decisions:
+
+      * **local** (the single-request engine loop): this strategy owns
+        its request's controller state and steps it with
+        :func:`repro_torch.core.kappa.kappa_step` on the step's logits
+        and just-sampled tokens, then reads (alive, traj) back; on
+        compaction the state's rows are gathered with ``compact_state``.
+      * **pooled** (the paged scheduler): the scheduler attaches a
+        :class:`PooledKappaController` slot, the controller math runs in
+        the scheduler's pooled dispatch, and this strategy reads its
+        slot's slice of the published host mirrors. ``ctrl_rows`` maps
+        the request's current (compaction-survivor) row order onto the
+        slot's controller rows; compaction only shrinks the map (dropped
+        rows are dead in the state).
+    """
 
     name = "kappa"
 
-    def begin(self, kcfg):
-        super().begin(kcfg)
+    def begin(self, params, cfg, kcfg, *, bos_id):
+        super().begin(params, cfg, kcfg, bos_id=bos_id)
+        self._begin_args = (params, cfg, bos_id)
+        # the local backend's controller state and reference log-probs,
+        # made on first use (a pooled request never makes them)
+        self.state: Optional[kappa_lib.KappaState] = None
+        self.log_q = None
         self.chain = cache_lib.bucket_chain(kcfg.num_branches)
         self.pool: Optional[PooledKappaController] = None
         self.slot: Optional[int] = None
@@ -261,18 +421,40 @@ class KappaStrategy(DecodeStrategy):
             self.pool = self.slot = self.ctrl_rows = None
             self._released = True
 
-    def _alive_traj(self):
-        if self.pool is None:
+    def _local_state(self) -> kappa_lib.KappaState:
+        if self._released:
+            # result() must run BEFORE release_pool(); a fresh local
+            # state here would report branch 0 / zero trajectories
+            # instead of the pooled outcome
             raise RuntimeError(
-                "KappaStrategy has no pooled-controller slot"
-                + (" (read after release_pool — call result() first)"
-                   if self._released else ""))
-        return (self.pool.alive[self.slot][self.ctrl_rows],
-                self.pool.traj[self.slot][self.ctrl_rows])
+                "KappaStrategy read after its pooled-controller slot was "
+                "released — call result() before release_pool()")
+        if self.state is None:
+            params, cfg, bos_id = self._begin_args
+            device = params["embed"].device
+            self.log_q = bos_log_q(params, cfg, bos_id, device)
+            self.state = kappa_lib.init_state(self.kcfg, device=device)
+        return self.state
 
-    def step(self, in_tokens, out_tokens, branch_ids, done, done_prev,
-             step_idx):
+    def _alive_traj(self):
+        if self.pool is not None:
+            return (self.pool.alive[self.slot][self.ctrl_rows],
+                    self.pool.traj[self.slot][self.ctrl_rows])
+        st = self._local_state()
+        # the local controller's outputs: one transfer for both
+        # repro-lint: disable-next-line=sync-discipline
+        return to_host(st.alive, st.traj)
+
+    def step(self, logits, in_tokens, out_tokens, branch_ids, done,
+             done_prev, step_idx, picked_lp=None):
         kcfg = self.kcfg
+        if self.pool is None:
+            # controller contract: ``tokens`` are the tokens JUST sampled
+            # (out_tokens, EOS on rows already done)
+            st = self._local_state()
+            toks = torch.from_numpy(out_tokens).to(logits.device)
+            self.state = kappa_lib.kappa_step(st, logits, toks, self.log_q,
+                                              kcfg)
         alive, traj = self._alive_traj()
         # ~done_prev: a branch's own EOS-emitting step is logged/counted
         counted = alive & ~done_prev
@@ -284,7 +466,11 @@ class KappaStrategy(DecodeStrategy):
             if bucket < rows:
                 order = np.argsort(~alive * 1_000_000 - traj)  # alive best first
                 keep = np.sort(order[:bucket])
-                self.ctrl_rows = self.ctrl_rows[keep]
+                if self.pool is not None:
+                    self.ctrl_rows = self.ctrl_rows[keep]
+                else:
+                    self.state = kappa_lib.compact_state(
+                        self.state, torch.from_numpy(keep).to(logits.device))
                 alive = alive[keep]
         # termination on the post-compaction view
         bids = branch_ids if keep is None else branch_ids[keep]
@@ -307,18 +493,28 @@ class KappaStrategy(DecodeStrategy):
         return int(branch_ids[int(np.argmax(masked))])
 
     def extra(self):
-        _, traj = self._alive_traj()
-        return {"cutoff": int(self.pool.cutoff[self.slot]),
-                "traj": traj.tolist()}
+        if self.pool is not None:
+            cutoff = int(self.pool.cutoff[self.slot])
+            traj = self.pool.traj[self.slot][self.ctrl_rows]
+        else:
+            st = self._local_state()
+            # repro-lint: disable-next-line=sync-discipline
+            cut, traj = to_host(st.cutoff, st.traj)
+            cutoff = int(cut)
+        return {"cutoff": cutoff, "traj": traj.tolist()}
 
 
-_STRATEGIES = {"greedy": GreedyStrategy, "kappa": KappaStrategy}
+_STRATEGIES = {
+    "greedy": GreedyStrategy,
+    "bon": BoNStrategy,
+    "stbon": STBoNStrategy,
+    "kappa": KappaStrategy,
+}
 
 
 def make_strategy(name: str) -> DecodeStrategy:
     if name not in _STRATEGIES:
-        raise ValueError(f"method {name!r} is not ported yet; "
-                         f"have {sorted(_STRATEGIES)}")
+        raise ValueError(f"unknown method {name!r}; have {sorted(_STRATEGIES)}")
     return _STRATEGIES[name]()
 
 
@@ -332,16 +528,16 @@ class RequestState:
     ``rng`` is a key (2,) int64 as :func:`repro_torch.serving.rng.prng_key`
     makes it; the stream lives on the host."""
 
-    def __init__(self, strategy: DecodeStrategy, cfg: ModelConfig,
+    def __init__(self, strategy: DecodeStrategy, params, cfg: ModelConfig,
                  kcfg: KappaConfig, prompt_len: int, rng, *, eos_id: int,
-                 max_seq: int):
+                 bos_id: int = 0, max_seq: int):
         self.strategy = strategy
         self.cfg = cfg
         self.kcfg = kcfg
         self.eos_id = eos_id
         self.max_seq = max_seq
         self.rng = rng.cpu()
-        strategy.begin(kcfg)
+        strategy.begin(params, cfg, kcfg, bos_id=bos_id)
         self.n = strategy.rows(kcfg)
         self.log = TokenLog(self.n, kcfg.max_new_tokens + 1)
         self.branch_ids = np.arange(self.n)
@@ -355,16 +551,29 @@ class RequestState:
         self.cur: Optional[np.ndarray] = None
         self.finished = False
 
+    def _sample(self, logits) -> tuple:
+        """Sample one token per live row with this step's keys; returns
+        the device tokens, plus their log-probs when the strategy wants
+        them, for the caller's one host transfer."""
+        rows = logits.shape[0]
+        keys = self.step_keys().to(logits.device)
+        gmask = torch.full((rows,), self.strategy.greedy,
+                           device=logits.device)
+        toks = sampler.sample_rows(keys, logits, gmask, self.kcfg)
+        if self.strategy.wants_picked_lp:
+            return toks, sampler.picked_logprob(logits, toks)
+        return (toks,)
+
     def first_tokens(self, pf_logits) -> np.ndarray:
         """Sample the fan-out tokens from the prefill logits (V,) — one
         host transfer at admission, as in the JAX package."""
-        keys0 = self.step_keys().to(pf_logits.device)
         logits0 = pf_logits[None].expand(self.n, pf_logits.shape[-1])
-        gmask = torch.full((self.n,), self.strategy.greedy,
-                           device=pf_logits.device)
-        cur, = to_host(sampler.sample_rows(keys0, logits0, gmask, self.kcfg))
+        # the admission's one transfer (tokens, picked log-probs)
+        # repro-lint: disable-next-line=sync-discipline
+        cur, *picked = to_host(*self._sample(logits0))
         self.cur = cur.astype(np.int32)
         self.done = self.strategy.init_done(self.cur, self.eos_id)
+        self.strategy.observe_prefill(picked[0] if picked else None)
         self.log.append(self.branch_ids, self.cur, np.ones(self.n, bool))
         self.logical += self.n
         self.compute += self.n
@@ -379,18 +588,31 @@ class RequestState:
         self.rng = ks[0]
         return rng_lib.split(ks[1], len(self.branch_ids))
 
-    def advance(self, tokens: np.ndarray) -> StepDecision:
-        """Host-side work for one decode step given this request's
-        pre-sampled next tokens (sampled with its :meth:`step_keys`). The
-        caller applies ``decision.keep`` to its cache rows."""
+    def sample_and_advance(self, logits) -> StepDecision:
+        """Single-request path: one ``sample_rows`` call for this
+        request's rows (``logits`` (rows, V) on the device), ONE host
+        transfer of the sampled tokens (and, for a strategy that wants
+        them, their log-probs), then the shared host-side bookkeeping."""
+        toks, *picked = to_host(*self._sample(logits))
+        return self.advance(logits, toks, picked[0] if picked else None)
+
+    def advance(self, logits, tokens: np.ndarray,
+                picked_lp: Optional[np.ndarray] = None) -> StepDecision:
+        """Host-side work for one decode step given this request's rows'
+        logits (the strategy's input; None from the paged scheduler) and
+        pre-sampled next tokens (sampled with its :meth:`step_keys`).
+        ``picked_lp`` carries the sampled tokens' log-probs for a
+        strategy that wants them. The caller applies ``decision.keep``
+        to its cache rows."""
         nxt_np = np.array(tokens, np.int32)
         done_prev = self.done[self.branch_ids].copy()
         nxt_np = np.where(done_prev, self.eos_id, nxt_np)
         self.done[self.branch_ids] |= (nxt_np == self.eos_id)
         self.pos += 1
         self.step += 1
-        dec = self.strategy.step(self.cur, nxt_np, self.branch_ids,
-                                 self.done, done_prev, self.step)
+        dec = self.strategy.step(logits, self.cur, nxt_np, self.branch_ids,
+                                 self.done, done_prev, self.step,
+                                 picked_lp=picked_lp)
         self.log.append(self.branch_ids, nxt_np, dec.counted)
         self.logical += int(np.sum(dec.counted))
         self.compute += len(self.branch_ids)

@@ -253,25 +253,44 @@ def test_page_allocator_cow_guard():
 
 
 def test_serve_eval_on_cpu_reports_the_metric_line():
-    out = serve_eval(ARCH, "kappa", n=4, problems=2, max_new=8, page_size=8,
-                     prefill_chunk=4, device="cpu", verbose=False)
+    out = serve_eval(ARCH, "kappa", n=4, problems=2, max_new=8, paged=True,
+                     page_size=8, prefill_chunk=4, device="cpu",
+                     verbose=False)
     assert out["device"] == "cpu" and out["device_peak_mb"] is None
     assert out["total_tokens"] > 0 and out["tokens_per_s"] > 0
     assert 0 < out["row_utilization"] <= 1
 
 
-def test_serve_cli_requires_paged(capsys):
-    """The CLI serves only through the paged scheduler: without --paged
-    it exits with a usage error; with it, it prints the metric line."""
-    argv = ["--method", "greedy", "--n", "1", "--problems", "1",
-            "--max-new", "4", "--page-size", "8", "--prefill-chunk", "4",
-            "--device", "cpu"]
+@pytest.mark.parametrize("method", ["greedy", "kappa"])
+def test_serve_cli_runs_engine_loop_without_paged(capsys, method):
+    """Without --paged the CLI serves each prompt through the
+    single-request engine loop and prints its metric line; with it, the
+    paged scheduler's."""
+    argv = ["--method", method, "--n", "2", "--problems", "1",
+            "--max-new", "4", "--device", "cpu"]
+    serve_main(argv)
+    out = capsys.readouterr().out
+    assert "total_toks=" in out and "engine:" in out and "steps=" in out
+    serve_main(argv + ["--paged", "--page-size", "8", "--prefill-chunk", "4"])
+    assert "sched:" in capsys.readouterr().out
+
+
+@pytest.mark.parametrize("method", ["bon", "stbon"])
+def test_serve_cli_refuses_paged_bon_and_stbon(capsys, method):
+    """BoN and ST-BoN run on the engine loop only: with --paged the CLI
+    exits with a usage error naming the ROADMAP item, and the scheduler
+    refuses them too."""
     with pytest.raises(SystemExit) as exc:
-        serve_main(argv)
+        serve_main(["--method", method, "--paged", "--device", "cpu"])
     assert exc.value.code == 2
-    assert "--paged" in capsys.readouterr().err
-    serve_main(argv + ["--paged"])
-    assert "tok/s" in capsys.readouterr().out
+    assert "ROADMAP" in capsys.readouterr().err
+    with pytest.raises(ValueError, match="ROADMAP"):
+        serve_eval(ARCH, method, problems=1, max_new=4, paged=True,
+                   device="cpu", verbose=False)
+    with pytest.raises(ValueError, match="ROADMAP"):
+        PagedScheduler(None, get_config(ARCH).reduced(), KappaConfig(**KCFG),
+                       rows=8, max_seq=32, method=method, eos_id=tok.EOS,
+                       device="cpu")
 
 
 def test_entry_points_default_to_cuda():
